@@ -1,4 +1,4 @@
-# ROS2 launch for the TPU rebuild — the rclpy twin of
+# ROS2 launch for the JAX rebuild — the rclpy twin of
 # launch/optic_flow_tpu.launch (itself mirroring the reference's
 # launch/optic_flow.launch:1-64): same namespace convention, frame-id
 # arguments, and topic remap surface, driving the node via

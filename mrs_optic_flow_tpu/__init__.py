@@ -1,17 +1,17 @@
-"""mrs_optic_flow_tpu — TPU-native optical-flow velocity estimation framework.
+"""mrs_optic_flow_tpu — optical-flow velocity estimation framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-ctu-mrs/mrs_optic_flow (a ROS nodelet estimating UAV metric velocity from a
-downward-facing camera via multi-patch FFT phase correlation, accelerated by
-a fused OpenCL kernel).  Architecture is TPU-first:
+A from-scratch JAX/XLA rebuild of the capabilities of ctu-mrs/mrs_optic_flow
+(a ROS nodelet estimating UAV metric velocity from a downward-facing camera
+via multi-patch FFT phase correlation, accelerated by a fused OpenCL
+kernel), running on an NVIDIA GPU:
 
 - the fused per-patch FFT -> cross-power -> peak -> centroid chain of
   ``cl/FftMethod.cl:1381`` (phaseCorrelateField) becomes one jit-compiled
-  batched graph over a ``[P, S, S]`` patch tensor (XLA FFTs or MXU matmul
-  DFTs), with a Pallas kernel for the fused peak/centroid stage;
+  batched graph over a ``[P, S, S]`` patch tensor (XLA FFTs or matmul
+  DFTs) that XLA fuses;
 - the radix plan machinery (``src/FftMethod.cpp:215-565``) is replaced by the
   XLA compilation cache — plans are compile-time, keyed by shape;
-- host<->GPU OpenCL queue plumbing becomes host->HBM feeds with donated
+- host<->GPU OpenCL queue plumbing becomes host->device feeds with donated
   buffers and a batched throughput mode sharded over a ``jax.sharding.Mesh``.
 
 Layer map (mirrors SURVEY.md section 1):

@@ -152,7 +152,7 @@ def _run_flight(args, cfg):
 def _run_ros(args, cfg):
     """``--ros``: bring the node up on a live ROS1 graph — the deployment
     shape of the reference nodelet (``launch/optic_flow.launch:29``), minus
-    the nodelet manager (the device work is out-of-process on the TPU, so
+    the nodelet manager (the device work runs in JAX on the GPU, so
     zero-copy nodelet transport buys nothing).  ``rospy.init_node`` happens
     here; topic remapping is roslaunch's, via ``launch/optic_flow_tpu.launch``.
     """
@@ -263,6 +263,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import numpy as np
+
+    from mrs_optic_flow_tpu.utils.cache import enable_persistent_cache
+
+    enable_persistent_cache()
 
     from mrs_optic_flow_tpu.config import load_config
     from mrs_optic_flow_tpu.runtime import FrameStream, OpticFlowNode, SyntheticScene

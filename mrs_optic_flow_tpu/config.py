@@ -92,22 +92,10 @@ class OpticFlowConfig:
     calibration_coeff_y: float
     constraints: Constraints
 
-    # ---- TPU-backend knobs (OPTIONAL ``tpu:`` block; absent in reference
-    # YAMLs, which must keep loading unchanged — hence defaults, not
-    # _require).  ``use_pallas`` is the YAML surface for the reference's
-    # ``useOCL`` launch param (src/optic_flow.cpp:853). ----
-    use_pallas: bool = True
-    #: whether the YAML actually set use_pallas (the SAD engines have their
-    #: own default and only an explicit key overrides it)
-    use_pallas_explicit: bool = False
-    backend: str = "dft"  # dft (MXU matmul) | fft (XLA FFT)
-    mxu_passes: int = 3  # docs/PERFORMANCE.md: 1 = fast mode (0.02 px)
-    half_spectrum: bool = True
-    #: frames-kernel step packing (docs/PERFORMANCE.md): frame pairs per
-    #: Pallas grid step / bands per M-stacked matmul stream; None auto-picks
-    #: the measured-fastest pair ((2, 2) even batches, (1, 1) odd/b=1)
-    pairs_per_step: int | None = None
-    band_stack: int | None = None
+    # ---- device-backend knobs (OPTIONAL ``tpu:`` block; absent in
+    # reference YAMLs, which must keep loading unchanged — hence defaults,
+    # not _require) ----
+    backend: str = "fft"  # fft (XLA FFT, cuFFT) | dft (matmul DFT)
     #: long-range downsample ratio — the reference's compile-time
     #: ``LONG_RANGE_RATIO`` (src/FftMethod.cpp:3, default 4); ratio 2
     #: switches get2DT to the inlier-vote policy (src/optic_flow.cpp:414-421)
@@ -119,9 +107,8 @@ class OpticFlowConfig:
     #: device dispatch (the reference preprocesses on host too,
     #: src/optic_flow.cpp:1602-1622) — uploads the frame_size² gray window
     #: instead of the full BGR frame (4.7x fewer bytes at the default
-    #: 752x480x3 -> 480² geometry).  A win whenever the host->device link is
-    #: bandwidth-bound; roughly neutral on-host over PCIe
-    #: (docs/PERFORMANCE.md).  Falls back to device preprocessing when the
+    #: 752x480x3 -> 480² geometry).  Whether that wins over PCIe is not
+    #: measured yet.  Falls back to device preprocessing when the
     #: native library, geometry (scale_factor != 1, crop at the image edge),
     #: or input format doesn't allow it.
     host_preprocess: bool = False
@@ -132,7 +119,6 @@ class OpticFlowConfig:
     #: log-polar image size; 0 = frame_size (the reference's square
     #: geometry). Smaller trades decode granularity for speed — decode
     #: constants rescale so the configured magnitude semantics hold
-    #: (docs/PERFORMANCE.md row)
     scale_rot_lp_resolution: int = 0
     #: tilt deadband for the scale/rotation DECODE (deviation 23): the
     #: log-polar similarity model assumes centred zoom+rotation flow
@@ -162,6 +148,14 @@ class OpticFlowConfig:
     def ransac_threshold_rad_sq(self) -> float:
         """Squared at load like _RansacThresholdRadSq_ (src/optic_flow.cpp:895)."""
         return self.ransac.threshold_rad**2
+
+
+#: ``tpu:`` keys that chose among the removed kernels of the first build; a YAML that
+#: still sets one fails at load rather than silently meaning nothing
+REMOVED_KERNEL_KEYS = (
+    "use_pallas", "mxu_passes", "half_spectrum", "bands_per_step",
+    "pairs_per_step", "band_stack",
+)
 
 
 def _require(tree: Mapping[str, Any], path: str) -> Any:
@@ -259,6 +253,13 @@ def load_config(
     scan_radius = int(_require(tree, f"{of}/scan_radius"))
     # optional block; a bare `tpu:` header maps to None in YAML
     tpu_block = tree.get("tpu") or {}
+    for key in REMOVED_KERNEL_KEYS:
+        if key in tpu_block:
+            raise ConfigError(
+                f"tpu/{key} chose a TPU Pallas kernel, which no longer "
+                "exists (the plain XLA path is the one device path); "
+                "remove the key from the config"
+            )
 
     return OpticFlowConfig(
         version=version,
@@ -311,24 +312,7 @@ def load_config(
             max_yaw_rate=float(_require(tree, "constraints/max_yaw_rate")),
             speed_noise=float(_require(tree, "constraints/speed_noise")),
         ),
-        use_pallas=bool(tpu_block.get("use_pallas", True)),
-        use_pallas_explicit="use_pallas" in tpu_block,
-        backend=str(tpu_block.get("backend", "dft")),
-        # same canonicalization as FftMethodConfig.normalized: a YAML `true`
-        # must mean 3 passes, not int(True) == 1 (the fast mode)
-        mxu_passes=(
-            3 if tpu_block.get("mxu_passes", 3) is True
-            else int(tpu_block.get("mxu_passes", 3))
-        ),
-        half_spectrum=bool(tpu_block.get("half_spectrum", True)),
-        pairs_per_step=(
-            None if tpu_block.get("pairs_per_step") is None
-            else int(tpu_block["pairs_per_step"])
-        ),
-        band_stack=(
-            None if tpu_block.get("band_stack") is None
-            else int(tpu_block["band_stack"])
-        ),
+        backend=str(tpu_block.get("backend", "fft")),
         long_range_ratio=int(tpu_block.get("long_range_ratio", 4)),
         quantize_8bit=bool(tpu_block.get("quantize_8bit", True)),
         host_preprocess=bool(tpu_block.get("host_preprocess", False)),

@@ -1,12 +1,12 @@
-"""Batch-last geometry: the full getRT chain laid out for the TPU VPU.
+"""Batch-last geometry: the full getRT chain laid out for batched serving.
 
 Same math as :func:`mrs_optic_flow_tpu.geometry.motion.get_rt` (which stays
 the reference implementation for single frames and for tests), re-laid-out
 for throughput serving: every intermediate keeps the **batch axis last**, so
-it rides the VPU's 128-lane axis at full width.  The vmapped per-sample
-version puts the batch axis first, leaving coordinate axes of size 2/3/9/16
-on the lanes — 1.5–12% lane utilization for every elementwise op; at batch
-512 that made geometry cost as much as the flow kernel itself.
+the widest axis is the contiguous one and the coordinate axes of size
+2/3/9/16 stay outer.  (The layout was chosen for the wide vector lanes of
+the accelerator this was first built for; whether it is the best layout on
+the GPU is not measured yet.)
 
 Differences from the per-sample path (documented, not bugs):
 
@@ -61,8 +61,7 @@ def _undistort_xy(px, py, fx, fy, cx, cy, dist, iterations=5):
 
 def _mm33(a, b):
     """[3, 3, B] @ [3, 3, B] with the batch trailing, expanded elementwise —
-    XLA lowers a batched 3x3 einsum to per-sample MXU matmuls, which is
-    pathological at these sizes; 27 fused VPU mult-adds are ~free."""
+    27 fused multiply-adds instead of B tiny 3x3 matmuls."""
     return jnp.sum(a[:, :, None, :] * b[None, :, :, :], axis=1)
 
 
@@ -104,9 +103,9 @@ def _h4_b(x4, y4, u4, v4):
     determinant leaves the projective map unchanged), and
     ``H = H_dst . adj(H_src)``.  For 4 points in general position this IS
     the 1-D null space of the 8x9 DLT system — the same hypothesis the
-    previous Gram-Schmidt null-space solve produced — at ~5% of its FLOPs;
-    RANSAC hypothesis solving was the entire geometry cost on TPU
-    (docs/PERFORMANCE.md).  Degenerate draws (3 collinear / coincident
+    previous Gram-Schmidt null-space solve produced — at ~5% of its FLOPs
+    (RANSAC hypothesis solving is most of the geometry's work).  Degenerate
+    draws (3 collinear / coincident
     points) yield a rank-deficient H whose reprojection error is large, so
     they lose the consensus vote exactly like the null-space version.
     """
@@ -233,8 +232,8 @@ def _ransac_h_b(ax, ay, bx, by, valid, key, iterations, threshold):
 
     # Gumbel top-4: uniform-over-valid distinct sampling per (iteration,
     # sample) — the batch-last equivalent of jax.random.choice(p=valid).
-    # Selection by 4 rounds of argmax+mask: an argsort over the point axis
-    # costs ~200x more (XLA variadic sort on TPU).
+    # Selection by 4 rounds of argmax+mask instead of an argsort over the
+    # point axis (a variadic sort per (iteration, sample)).
     g = jax.random.gumbel(key, (iterations, p, b))
     g = jnp.where(valid[None], g, -jnp.inf)
     iota_p = jnp.arange(p)[None, :, None]

@@ -28,9 +28,9 @@ from typing import NamedTuple, Tuple
 import jax
 import jax.numpy as jnp
 
-# JAX's default f32 matmul runs at reduced precision on some backends (~1e-2
-# relative error observed on both the CPU and TPU builds here); geometry needs
-# true float32, so every contraction pins Precision.HIGHEST.
+# JAX's default f32 matmul runs at reduced precision on some backends (TF32
+# on GPU tensor cores, bf16 passes elsewhere; ~1e-2 relative error observed);
+# geometry needs true float32, so every contraction pins Precision.HIGHEST.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -112,15 +112,15 @@ def _solve_h4(src4: jnp.ndarray, dst4: jnp.ndarray) -> jnp.ndarray:
 def _solve_h_svd(a: jnp.ndarray) -> jnp.ndarray:
     """Null vector via SVD of A itself — ~3e-7 accurate in float32 (the
     normal equations square the conditioning).  Reference solver for tests;
-    the production refit is :func:`_solve_h_qr_null` (vmapped QR-iteration
-    SVD on small matrices is pathologically slow on TPU)."""
+    the production refit is :func:`_solve_h_qr_null` (a vmapped iterative
+    SVD of small matrices is slow on accelerators)."""
     _, _, vt = jnp.linalg.svd(a, full_matrices=True)
     return _norm_h(vt[..., -1, :].reshape(a.shape[:-2] + (3, 3)))
 
 
 def _solve_h_qr_null(a: jnp.ndarray, h0: jnp.ndarray) -> jnp.ndarray:
     """Smallest right-singular vector of ``A`` [..., M, 9] via Householder
-    QR + inverse iteration on ``R`` — the TPU-native replacement for the
+    QR + inverse iteration on ``R`` — the fixed-shape replacement for the
     refit SVD.
 
     QR keeps the conditioning of ``A`` itself (unlike the normal equations,
@@ -296,7 +296,7 @@ def _det3x3(m: jnp.ndarray) -> jnp.ndarray:
 def _sv_middle_3x3(h: jnp.ndarray) -> jnp.ndarray:
     """Middle singular value of a 3x3 via the closed-form (trigonometric)
     eigenvalues of the symmetric ``H^T H`` — replaces ``jnp.linalg.svd``
-    whose vmapped QR iteration is pathologically slow on TPU.
+    whose vmapped QR iteration is slow on accelerators.
 
     For symmetric A with eigenvalues e1 >= e2 >= e3:
     ``e_k = q + 2 p cos(phi + 2 pi k / 3)`` (Cardano / Smith's method).

@@ -2,7 +2,7 @@
 
 The reference exposes one abstract interface, ``OpticFlowCalc``
 (``include/OpticFlowCalc.h:6-22``), with four implementations of which one is
-live.  All are rebuilt here, each TPU-native:
+live.  All are rebuilt here as batched JAX programs:
 
 =========================================  =================================
 reference engine                           here

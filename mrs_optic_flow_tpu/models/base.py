@@ -2,7 +2,7 @@
 
 The reference's base class (``include/OpticFlowCalc.h:6-22``) prescribes:
 ``processImage(imCurr, gui, debug, midPoint, yaw_angle, rot_center,
-raw_output, fx, fy) -> vector<Point2d>`` plus ``setImPrev``.  The TPU-native
+raw_output, fx, fy) -> vector<Point2d>`` plus ``setImPrev``.  The JAX
 contract keeps the same shape (gray frame in, per-window pixel shifts out;
 invalid windows poisoned with NaN) but is functional: state in, state out.
 """

@@ -38,12 +38,6 @@ class BlockMethodConfig:
     scan_radius: int = 21
     step_size: int = 24  # unused by BlockMethod's own grid, kept for parity
     refine_passes: int = 2  # Refine(..., 2), src/BlockMethod.cpp:82
-    #: fused Pallas SAD kernel vs lax.scan — at the default geometry the
-    #: step is refine-dominated so the two tie at step level (3.62 vs 3.71
-    #: ms/frame on v5e); the SAD kernel itself is the measured-faster path
-    #: (scripts/tune_sad_kernel.py, docs/PERFORMANCE.md) and is shared with
-    #: FastSpacedBM where it wins 1.29x
-    use_pallas: bool = True
 
 
 class BlockMethod(FlowEngine):
@@ -81,18 +75,10 @@ class BlockMethod(FlowEngine):
         prev_regions = _extract_blocks(
             prev, origins - c.scan_radius, region
         )
-        if c.use_pallas:
-            from mrs_optic_flow_tpu.ops.block_matching import sad_search_pallas
-
-            sad = sad_search_pallas(
-                curr_blocks, prev_regions,
-                block_size=c.sample_point_size, scan_radius=c.scan_radius,
-            )
-        else:
-            sad = sad_search(
-                curr_blocks, prev_regions,
-                block_size=c.sample_point_size, scan_radius=c.scan_radius,
-            )
+        sad = sad_search(
+            curr_blocks, prev_regions,
+            block_size=c.sample_point_size, scan_radius=c.scan_radius,
+        )
         cell_flow = sad_min_flow(sad, c.scan_radius)
         top_x, top_y = histogram_vote(cell_flow, c.scan_radius)
         refined = refine_subpixel(

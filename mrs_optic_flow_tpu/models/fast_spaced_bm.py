@@ -36,10 +36,6 @@ class FastSpacedBMConfig:
     scan_radius: int = 21
     step_size: int = 24  # blockStep (grid pitch = size + step)
     test_depth: int = 3  # TestDepth (src/FastSpacedBMMethod_OCL.cpp:100)
-    #: fused Pallas SAD kernel vs lax.scan — measured 1.29x faster on v5e at
-    #: the default geometry: 0.749 vs 0.967 ms/frame through the full step
-    #: (scripts/tune_sad_kernel.py, docs/PERFORMANCE.md)
-    use_pallas: bool = True
 
 
 class FastSpacedBM(FlowEngine):
@@ -72,18 +68,10 @@ class FastSpacedBM(FlowEngine):
         curr_blocks = _extract_blocks(curr, origins, c.sample_point_size)
         region = c.sample_point_size + 2 * c.scan_radius
         prev_regions = _extract_blocks(prev, origins - c.scan_radius, region)
-        if c.use_pallas:
-            from mrs_optic_flow_tpu.ops.block_matching import sad_search_pallas
-
-            sad = sad_search_pallas(
-                curr_blocks, prev_regions,
-                block_size=c.sample_point_size, scan_radius=c.scan_radius,
-            )
-        else:
-            sad = sad_search(
-                curr_blocks, prev_regions,
-                block_size=c.sample_point_size, scan_radius=c.scan_radius,
-            )
+        sad = sad_search(
+            curr_blocks, prev_regions,
+            block_size=c.sample_point_size, scan_radius=c.scan_radius,
+        )
         # flat-area -> (0, 0): MinValThreshold = scanRadius^2 * 0.2
         # (src/FastSpacedBMMethod.cl:2, :79-84)
         cell_flow = sad_min_flow(

@@ -4,16 +4,16 @@ Rebuild of ``FftMethod`` (``src/FftMethod.cpp:1680-2007``,
 ``include/FftMethod.h``): a grid of ``sqNum x sqNum`` phase correlations per
 frame pair, with validity gating, plus the 4x-downsampled long-range variant.
 
-What changed going TPU-native:
+What changed in the re-design:
 
 - the ctor's device-buffer zoo (usrc/FFT/FFTR/MUL/IFFTC/PCR/ML...,
   ``src/FftMethod.cpp:1723-1758``) disappears — XLA owns intermediate
   buffers inside the jitted program;
 - the plan cache keyed by (size, depth) (``OCL_FftPlanCache``,
   ``include/FftMethod.h:284-317``) becomes the jit cache keyed by shape;
-- the `useOCL` CPU/GPU switch (``src/FftMethod.cpp:1824-1836``) becomes
-  `use_pallas` (fused Pallas kernel vs plain XLA) — both on-device, both
-  bit-identical in tests;
+- the `useOCL` CPU/GPU switch (``src/FftMethod.cpp:1824-1836``) has no
+  analogue: there is one device path, plain XLA, with ``backend`` choosing
+  the spectral transform (cuFFT-backed ``fft`` or matmul ``dft``);
 - the per-frame blocking enqueue + host readback decode loop
   (``src/FftMethod.cpp:398-472``) becomes one device program returning a
   ``[P, 2]`` array; a batched ``step_batch`` amortizes dispatch for
@@ -50,41 +50,23 @@ class FftMethodConfig:
     search_radius: int = DEFAULT_SEARCH_RADIUS  # src/FftMethod.cpp:819-822
     centroid_radius: int = DEFAULT_CENTROID_RADIUS  # cl/FftMethod.cl:1478
     long_range_ratio: int = 4  # LONG_RANGE_RATIO, src/FftMethod.cpp:3
-    backend: str = "dft"  # 'dft' (MXU matmul) or 'fft' (XLA FFT)
-    use_pallas: bool = True  # useOCL analogue (src/optic_flow.cpp:853)
-    #: Hermitian half-spectrum kernel bodies (docs/PERFORMANCE.md); False
-    #: restores the full-spectrum path for parity/debugging
-    half_spectrum: bool = True
-    #: row bands per Pallas grid step for the frames kernel; None auto-picks
-    bands_per_step: int | None = None
-    #: frame pairs per Pallas grid step / bands sharing each M-stacked matmul
-    #: stream; None auto-picks the measured-fastest pair per batch parity
-    #: ((2, 2) even, (1, 1) odd/b=1 — docs/PERFORMANCE.md)
-    pairs_per_step: int | None = None
-    band_stack: int | None = None
-    #: MXU passes per f32 matmul in the Pallas kernels: True/3 = bf16x3
-    #: (0.0005 px error), 1 trades ~0.02 px for ~+37% throughput at deep
-    #: pipelining (2 sits between), False = Precision.HIGHEST
-    #: (measured numbers: docs/PERFORMANCE.md)
-    mxu_passes: bool | int = True
+    #: spectral transform, both plain XLA: 'fft' (XLA's FFT, cuFFT on the
+    #: GPU) or 'dft' (matmul DFT at Precision.HIGHEST).  'fft' is the
+    #: faster on an H100 at b=1 and at a 1024-pair batch (PERF.md)
+    backend: str = "fft"
     #: carry ``imPrev`` as 8-bit grayscale like the reference (the node's
     #: cvtColor produces CV_8UC1 and FftMethod swaps that into imPrev,
     #: ``src/optic_flow.cpp:1597``, ``src/FftMethod.cpp:1872``; the float
     #: conversion at ``:1805`` happens per step, from the 8-bit image).
     #: Incoming float grays are rounded to uint8 before use, which matches
-    #: the reference's quantization, makes both operands 8-bit-exact so the
-    #: frames kernel drops the low-order input split pass (2 MXU passes
-    #: instead of 3 in stage 1), and quarters the carried state bytes.
-    #: ``False`` keeps round 1's float32 carry (no input rounding).
+    #: the reference's quantization and quarters the carried state bytes.
+    #: ``False`` keeps a float32 carry (no input rounding).
     quantize_8bit: bool = True
 
     def normalized(self) -> "FftMethodConfig":
         """Derived-size normalization from the reference ctor:
         even frame size (``src/FftMethod.cpp:1707-1709``), frame forced to a
-        multiple of the patch else one window (``:1710-1716``).  Also
-        canonicalizes ``mxu_passes`` to an int: ``True == 1`` in Python, so
-        a bool would collide with the 1-pass mode in every equality-keyed
-        cache (frozen-dataclass ==, jit static args)."""
+        multiple of the patch else one window (``:1710-1716``)."""
         if self.backend not in ("dft", "fft"):
             # fail at construction, not at the first traced step (the config
             # layer's strict-load philosophy, src/optic_flow.cpp:1084-1087)
@@ -95,27 +77,9 @@ class FftMethodConfig:
         patch = self.sample_point_size
         if frame % patch != 0:
             patch = frame
-        passes = 3 if self.mxu_passes is True else int(self.mxu_passes)
-        if (
-            frame == self.frame_size
-            and patch == self.sample_point_size
-            and type(self.mxu_passes) is int
-            and self.mxu_passes == passes
-        ):
+        if frame == self.frame_size and patch == self.sample_point_size:
             return self
-        return dataclasses.replace(
-            self, frame_size=frame, sample_point_size=patch, mxu_passes=passes
-        )
-
-
-def _exact_in_bf16(frames: jnp.ndarray) -> bool:
-    """True when the raw frame dtype is exactly representable in bfloat16
-    (uint8/int8 camera pixels: 8-bit ints fit bf16's mantissa) — lets the
-    kernels drop the low-order input split pass.  Shares the predicate with
-    the kernels' streaming/cast paths so they can't desynchronize."""
-    from mrs_optic_flow_tpu.ops.pallas_kernels import is_8bit
-
-    return is_8bit(frames.dtype)
+        return dataclasses.replace(self, frame_size=frame, sample_point_size=patch)
 
 
 class FftMethod(FlowEngine):
@@ -166,42 +130,15 @@ class FftMethod(FlowEngine):
 
     # -- core ----------------------------------------------------------------
 
-    def _correlate(self, curr_p: jnp.ndarray, prev_p: jnp.ndarray,
-                   exact: bool = False):
-        """Patch batch -> (shifts, response), backend-selected.
-
-        ``exact``: the operands are 8-bit-exact in bfloat16 (uint8 patches)
-        — the fullfused kernel then drops the low-order input split pass
-        (same fast path as the frames kernel's ``exact_inputs``)."""
+    def _correlate_frames(self, curr: jnp.ndarray, prev: jnp.ndarray, patch: int):
+        """Frame(s) ``[(B,) H, W]`` -> per-window (shifts, response), field
+        order ``index = i + q*j`` (``src/FftMethod.cpp:417``)."""
         c = self.config
-        if c.use_pallas and c.backend == "dft":
-            from mrs_optic_flow_tpu.ops.pallas_kernels import (
-                phase_correlate_fullfused_pallas,
-            )
-
-            lead = curr_p.shape[:-3]
-            flat_c = curr_p.reshape((-1,) + curr_p.shape[-2:])
-            flat_p = prev_p.reshape((-1,) + prev_p.shape[-2:])
-            s, m = phase_correlate_fullfused_pallas(
-                flat_c,
-                flat_p,
-                search_radius=c.search_radius,
-                centroid_radius=c.centroid_radius,
-                half_spectrum=c.half_spectrum,
-                bf16x3=c.mxu_passes,
-                exact_inputs=exact,
-            )
-            return s.reshape(lead + curr_p.shape[-3:-2] + (2,)), m.reshape(
-                lead + curr_p.shape[-3:-2]
-            )
         surf = correlation_surface(
-            curr_p.astype(jnp.float32), prev_p.astype(jnp.float32),
-            search_radius=c.search_radius, backend=c.backend
+            patchify(curr, patch).astype(jnp.float32),
+            patchify(prev, patch).astype(jnp.float32),
+            search_radius=c.search_radius, backend=c.backend,
         )
-        if c.use_pallas:
-            from mrs_optic_flow_tpu.ops.pallas_kernels import peak_refine_pallas
-
-            return peak_refine_pallas(surf, centroid_radius=c.centroid_radius)
         return peak_refine(surf, centroid_radius=c.centroid_radius)
 
     def _lr_correlate(self, curr_d: jnp.ndarray, prev_d: jnp.ndarray):
@@ -214,45 +151,11 @@ class FftMethod(FlowEngine):
         geometries where the downsampled frame is not an exact multiple of
         the LR patch — which the reference accepts, e.g. frame 600 / patch
         120 / ratio 4 -> a 150 px image with one 120 px window — no longer
-        crash ``patchify``'s reshape; then routes through the frame-banded
-        Pallas kernel whenever the (trimmed) geometry qualifies, for the
-        single-frame lane as well as the batch."""
-        c = self.config
-        patch = self.patch_lr
-        m = self.sq_num_lr * patch
-        curr_d = curr_d[..., :m, :m]
-        prev_d = prev_d[..., :m, :m]
-        batched = curr_d.ndim == 3
-        if c.use_pallas and c.backend == "dft" and patch % 8 == 0:
-            from mrs_optic_flow_tpu.ops.pallas_kernels import (
-                phase_correlate_frames_pallas,
-            )
-
-            # honor the tuned banding where it fits the coarser grid;
-            # fall back to auto-pick when it doesn't divide the LR rows
-            g = c.bands_per_step
-            if g is not None and self.sq_num_lr % g:
-                g = None
-            cb = curr_d if batched else curr_d[None]
-            pb = prev_d if batched else prev_d[None]
-            raw, resp = phase_correlate_frames_pallas(
-                cb, pb,
-                patch=patch,
-                search_radius=c.search_radius,
-                centroid_radius=c.centroid_radius,
-                half_spectrum=c.half_spectrum,
-                bands_per_step=g,
-                pairs_per_step=(
-                    c.pairs_per_step
-                    if batched and c.pairs_per_step
-                    and cb.shape[0] % c.pairs_per_step == 0
-                    else None
-                ),
-                band_stack=c.band_stack,
-                bf16x3=c.mxu_passes,
-            )
-            return (raw, resp) if batched else (raw[0], resp[0])
-        return self._correlate(patchify(curr_d, patch), patchify(prev_d, patch))
+        crash ``patchify``'s reshape."""
+        m = self.sq_num_lr * self.patch_lr
+        return self._correlate_frames(
+            curr_d[..., :m, :m], prev_d[..., :m, :m], self.patch_lr
+        )
 
     def _gate(self, shifts: jnp.ndarray, patch: int, max_speed: float) -> jnp.ndarray:
         """Validity gating -> NaN poisoning (``src/FftMethod.cpp:1840-1854``):
@@ -274,44 +177,9 @@ class FftMethod(FlowEngine):
         float32 happens on device (``convertTo(CV_32FC1)``, ``:1805``).
         """
         c = self.config
-        # with quantize_8bit both operands are 8-bit-exact (the reference's
-        # 8U pipeline), so the frames kernel takes the exact-input fast path;
-        # the float32 carry keeps round 1's behavior (no exact_inputs: a
-        # mixed-dtype stream may leave non-integer values in state.prev)
         curr = self._ingest(frame)
         prev = jnp.where(state.first, curr, state.prev)  # first-frame copy (:1788)
-
-        # the frame-banded kernel needs sublane-aligned bands (patch % 8);
-        # other geometries take the patch-batch kernel via _correlate
-        if c.use_pallas and c.backend == "dft" and c.sample_point_size % 8 == 0:
-            from mrs_optic_flow_tpu.ops.pallas_kernels import (
-                phase_correlate_frames_pallas,
-            )
-
-            raw, resp = phase_correlate_frames_pallas(
-                curr[None], prev[None],
-                patch=c.sample_point_size,
-                search_radius=c.search_radius,
-                centroid_radius=c.centroid_radius,
-                half_spectrum=c.half_spectrum,
-                bands_per_step=c.bands_per_step,
-                # single-frame batch (b=1): pairs_per_step stays auto (1);
-                # a configured value only applies to the batch modes
-                band_stack=c.band_stack,
-                bf16x3=c.mxu_passes,
-                exact_inputs=c.quantize_8bit,
-            )
-            raw, resp = raw[0], resp[0]
-        else:
-            # patches keep the carry dtype: the fullfused kernel casts in
-            # VMEM and 8-bit-exact operands drop the low-order split pass
-            # (the non-pallas path casts to f32 inside _correlate)
-            curr_p = patchify(curr, c.sample_point_size)
-            prev_p = patchify(prev, c.sample_point_size)
-            raw, resp = self._correlate(
-                curr_p, prev_p,
-                exact=_exact_in_bf16(curr) and _exact_in_bf16(prev),
-            )
+        raw, resp = self._correlate_frames(curr, prev, c.sample_point_size)
         shifts = self._gate(raw, c.sample_point_size, c.max_pixel_speed)
 
         new_state = FlowState(prev=curr, first=jnp.asarray(False))  # imPrev swap (:1872)
@@ -347,8 +215,7 @@ class FftMethod(FlowEngine):
 
         No reference equivalent — the OpenCL kernel processes one frame pair
         per blocking enqueue (``src/FftMethod.cpp:398``); batching is how the
-        TPU amortizes dispatch and fills the MXU (SURVEY.md section 2,
-        parallelism item 1).
+        device amortizes dispatch (SURVEY.md section 2, parallelism item 1).
         """
         c = self.config
         # the engine's carry discipline applies to the batched modes too
@@ -356,41 +223,9 @@ class FftMethod(FlowEngine):
         # keeping step / step_batch / fleet paths numerically consistent
         curr_frames = self._ingest(curr_frames)
         prev_frames = self._ingest(prev_frames)
-        exact = _exact_in_bf16(curr_frames) and _exact_in_bf16(prev_frames)
-        if c.use_pallas and c.backend == "dft" and c.sample_point_size % 8 == 0:
-            # frame-tiled kernel: patch extraction happens in the BlockSpec
-            # index map — no patchify copies in HBM (needs sublane-aligned
-            # bands: patch % 8 == 0; otherwise the patch-batch kernel below).
-            # 8-bit frames pass straight through (the kernel streams uint8
-            # into VMEM and casts there — no f32 copy of the batch in HBM)
-            from mrs_optic_flow_tpu.ops.pallas_kernels import (
-                phase_correlate_frames_pallas,
-            )
-
-            raw, resp = phase_correlate_frames_pallas(
-                curr_frames, prev_frames,
-                patch=c.sample_point_size,
-                search_radius=c.search_radius,
-                centroid_radius=c.centroid_radius,
-                half_spectrum=c.half_spectrum,
-                bands_per_step=c.bands_per_step,
-                # honor configured step packing only when it divides the batch
-                pairs_per_step=(
-                    c.pairs_per_step
-                    if c.pairs_per_step and curr_frames.shape[0] % c.pairs_per_step == 0
-                    else None
-                ),
-                band_stack=c.band_stack,
-                bf16x3=c.mxu_passes,
-                exact_inputs=exact,
-            )
-        else:
-            # carry dtype preserved: the fullfused kernel casts in VMEM and
-            # 8-bit-exact operands drop the low-order split pass (exact);
-            # the non-pallas path casts to f32 inside _correlate
-            curr_p = patchify(curr_frames, c.sample_point_size)
-            prev_p = patchify(prev_frames, c.sample_point_size)
-            raw, resp = self._correlate(curr_p, prev_p, exact=exact)
+        raw, resp = self._correlate_frames(
+            curr_frames, prev_frames, c.sample_point_size
+        )
         shifts = self._gate(raw, c.sample_point_size, c.max_pixel_speed)
         return FlowResult(shifts=shifts, shifts_raw=raw, response=resp)
 
@@ -403,8 +238,6 @@ class FftMethod(FlowEngine):
         throughput analogue of :meth:`step_long_range` for fleet serving at
         takeoff / low altitude.  Returns ``[B, P_lr, 2]`` shifts."""
         c = self.config
-        # bilinear resize interpolates, so the downsampled frames are no
-        # longer 8-bit-exact: go through float32 (no exact-input path here);
         # _ingest first so the carry discipline matches step_long_range
         curr_d = resize_by(self._ingest(curr_frames).astype(jnp.float32), c.long_range_ratio)
         prev_d = resize_by(self._ingest(prev_frames).astype(jnp.float32), c.long_range_ratio)

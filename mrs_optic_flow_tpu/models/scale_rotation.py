@@ -9,11 +9,10 @@ velocity and rotation to yaw rate (``scale_rot_output``,
 out, ``src/optic_flow.cpp:1629-1650`` — here it is live through the runtime
 layer).
 
-TPU-first design (unlike the reference's single CPU ``cv::phaseCorrelate``
-call): the correlation runs through the matmul-DFT backend — two ``[N, N]``
-MXU matmul pairs per transform — with the fused Pallas peak/centroid stage,
-the same fast path the flow engine uses (``docs/PERFORMANCE.md`` measured
-the XLA-FFT lowering ~18x slower on this backend).  ``lp_resolution``
+Device design (unlike the reference's single CPU ``cv::phaseCorrelate``
+call): the correlation runs through the same plain XLA phase correlation as
+the flow engine (``backend`` = matmul DFT or XLA FFT), batched over frames.
+``lp_resolution``
 optionally shrinks the log-polar image (decode constants are rescaled so
 the configured ``magnitude`` semantics are preserved); ``step_batch`` is the
 fleet/throughput variant, and :class:`~mrs_optic_flow_tpu.runtime.fleet.FleetServer`
@@ -72,8 +71,7 @@ class ScaleRotationConfig:
     #: src/scaleRotationEstimator.cpp:113) or "bilinear" (cheaper; accuracy
     #: delta quantified in tests/test_logpolar.py)
     interp: str = "lanczos4"
-    backend: str = "dft"  # dft (MXU matmul) | fft (XLA FFT)
-    use_pallas: bool = True  # fused peak/centroid stage (useOCL analogue)
+    backend: str = "dft"  # dft (matmul DFT) | fft (XLA FFT)
     #: output rows per ``lax.map`` step of the log-polar resample — bounds
     #: the dense one-hot weight temporaries (``ops/logpolar.py``); tuned by
     #: ``scripts/tune_scale_rotation.py``
@@ -81,13 +79,11 @@ class ScaleRotationConfig:
     #: streams per ``lax.map`` step of the BATCHED resample
     #: (``step_batch*``): a plain vmap multiplies the x-pass ``t1``
     #: temporaries by the stream count ([B, p8, yln, cc] — ~240 MB at 16
-    #: streams x production geometry), pushing the y-pass to HBM; the
-    #: per-stream matmuls are already MXU-sized (M = p8*cc ~ 7.8k), so
-    #: chunking streams recovers the single-stream rate.  Measured on v5e
-    #: at 16 streams x 480²/49.9 (``scripts/tune_scale_rotation.py``,
-    #: BENCH_LP_CHUNKS sweep): chunk 1 = 0.310 ms/frame/stream (the
-    #: single-stream step's own 0.311), 2 = 0.365, 4 = 0.539, vmap =
-    #: 0.803 — hence 1.  0 disables chunking (plain vmap).  Under a MESH a
+    #: streams x production geometry), while the per-stream matmuls are
+    #: already large (M = p8*cc ~ 7.8k).  1 bounds the temporaries at one
+    #: stream; the best chunk on the GPU is not measured yet
+    #: (``scripts/tune_scale_rotation.py`` sweeps it).  0 disables chunking
+    #: (plain vmap).  Under a MESH a
     #: ``lax.map`` over the GSPMD-sharded batch axis would serialize
     #: across devices, so ``BatchPipeline._sr_resample`` runs the chunked
     #: form inside ``shard_map`` (per-device local chunking) and falls
@@ -97,7 +93,7 @@ class ScaleRotationConfig:
     #: the reference feeds its 8-bit gray pipeline into ``cv::logPolar``
     #: (``src/scaleRotationEstimator.cpp:108-113`` on the CV_8UC1 imCurr),
     #: and 8-bit-exact inputs let the resample drop one of its three bf16
-    #: MXU passes (``ops/logpolar.py``)
+    #: matmul passes (``ops/logpolar.py``)
     quantize_8bit: bool = True
 
     @property
@@ -181,7 +177,7 @@ class ScaleRotationEstimator:
     def _logpolar_w(self, frame: jnp.ndarray, weights: tuple) -> jnp.ndarray:
         c = self.config
         # uint8 frames are exact in bf16, letting the resample drop one of
-        # its three MXU passes (ops/logpolar.py)
+        # its three matmul passes (ops/logpolar.py)
         lp = logpolar(
             self._ingest(frame),
             self.m_eff,
@@ -212,13 +208,10 @@ class ScaleRotationEstimator:
         the batch axis is GSPMD-sharded and runs the chunked form inside
         ``shard_map`` instead).
 
-        The round-3 fleet penalty (0.816 vs 0.315 ms/frame/stream at 16
-        streams, docs/PERFORMANCE.md) was a plain ``vmap``: the x-pass
-        ``t1`` temporaries scale with the stream batch and spill the y-pass
-        to HBM.  Chunking bounds them at ``lp_batch_chunk`` streams; the
-        MXU utilization is carried by the per-stream matmul sizes, not the
-        stream batch, so small chunks cost nothing (measured: chunk 1
-        equals the single-stream rate)."""
+        A plain ``vmap`` scales the x-pass ``t1`` temporaries with the
+        stream batch; chunking bounds them at ``lp_batch_chunk`` streams.
+        The matmul sizes are carried by the per-stream shapes, not the
+        stream batch."""
         b = frames.shape[0]
         g = int(self.config.lp_batch_chunk if chunk is None else chunk)
         g = min(g, b)
@@ -236,19 +229,12 @@ class ScaleRotationEstimator:
         return out.reshape((n_chunks * g,) + out.shape[2:])[:b]
 
     def _correlate(self, lp_c: jnp.ndarray, lp_p: jnp.ndarray):
-        """Phase-correlate log-polar images ``[..., N, N]`` on the MXU path;
+        """Phase-correlate log-polar images ``[..., N, N]``;
         returns ``(shift [..., 2], maxval [...])``."""
         c = self.config
-        n = c.lp_res
         surf = correlation_surface(
-            lp_c, lp_p, search_radius=n // 2, backend=c.backend
+            lp_c, lp_p, search_radius=c.lp_res // 2, backend=c.backend
         )
-        if c.use_pallas:
-            from mrs_optic_flow_tpu.ops.pallas_kernels import peak_refine_pallas
-
-            lead = surf.shape[:-2]
-            s, m = peak_refine_pallas(surf.reshape((-1, n, n)))
-            return s.reshape(lead + (2,)), m.reshape(lead)
         return peak_refine(surf)
 
     def _decode(self, shift: jnp.ndarray, gate: jnp.ndarray):
@@ -298,7 +284,7 @@ class ScaleRotationEstimator:
         frame-to-frame); same decode as ``src/scaleRotationEstimator.cpp:
         117-124``.  The log-polar resample runs ``lp_batch_chunk`` streams
         per ``lax.map`` step (:meth:`_logpolar_batch_w`); the correlation
-        runs as ONE batched MXU program.  ``lp_p``/``lp_c`` accept
+        runs as ONE batched device program.  ``lp_p``/``lp_c`` accept
         already-resampled log-polar images (``BatchPipeline`` computes them
         under ``shard_map`` when the batch is mesh-sharded)."""
         if lp_p is None:

@@ -8,7 +8,7 @@ not available in this image — plain C ABI + ctypes instead).  Components:
   item 3);
 - :func:`bgr_to_gray` / :func:`gray_crop` — fixed-point uint8 preprocessing
   (host side of ``src/optic_flow.cpp:1602-1622``), fused so only the cropped
-  window is converted and only uint8 crosses host->HBM;
+  window is converted and only uint8 crosses host->device;
 - :class:`Recorder` — timestamped raw-frame log writer/reader (the
   video-writer + rosbag-replay analog, ``src/FftMethod.cpp:1695-1704``).
 """
@@ -16,6 +16,7 @@ not available in this image — plain C ABI + ctypes instead).  Components:
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import pathlib
 import subprocess
 from typing import Optional, Tuple
@@ -48,13 +49,18 @@ def load() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     src = _NATIVE_DIR / "src" / "of_runtime.cpp"
-    if not _LIB_PATH.exists() or (
-        src.exists() and src.stat().st_mtime > _LIB_PATH.stat().st_mtime
-    ):
-        try:
-            _build()
-        except (subprocess.CalledProcessError, FileNotFoundError) as e:
-            raise NativeUnavailable(f"cannot build native runtime: {e}") from e
+    # several processes (e.g. test workers) may load at once: the staleness
+    # check and the build happen under one file lock, so no process ever
+    # opens a library another one is still writing
+    with open(_NATIVE_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not _LIB_PATH.exists() or (
+            src.exists() and src.stat().st_mtime > _LIB_PATH.stat().st_mtime
+        ):
+            try:
+                _build()
+            except (subprocess.CalledProcessError, FileNotFoundError) as e:
+                raise NativeUnavailable(f"cannot build native runtime: {e}") from e
     lib = ctypes.CDLL(str(_LIB_PATH))
 
     lib.ofq_create.restype = ctypes.c_void_p

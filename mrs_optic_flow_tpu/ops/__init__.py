@@ -1,12 +1,12 @@
-"""Device kernels: the TPU-native equivalents of the reference's OpenCL code.
+"""Device ops: the JAX equivalents of the reference's OpenCL code.
 
 ==============================================  ================================
-reference native piece                          TPU-native equivalent here
+reference native piece                          equivalent here
 ==============================================  ================================
 ``phaseCorrelateField`` (cl/FftMethod.cl:1381)  :mod:`.phase_correlate`
 ``mulAndNormalizeSpectrums`` (cl:976-1117)      fused into the same graph
-``minmaxloc``+``refine`` (cl:1164-1379)         :mod:`.pallas_kernels`
-radix FFT butterflies (cl:29-519)               XLA FFT / MXU matmul-DFT
+``minmaxloc``+``refine`` (cl:1164-1379)         :func:`.phase_correlate.peak_refine`
+radix FFT butterflies (cl:29-519)               XLA FFT (cuFFT) / matmul-DFT
 ``FastSpacedBMMethod.cl`` SAD+histogram         :mod:`.block_matching`
 ``BlockMethod`` CPU SAD (src/BlockMethod.cpp)   :mod:`.block_matching`
 log-polar (src/scaleRotationEstimator.cpp)      :mod:`.logpolar`

@@ -6,10 +6,9 @@ Rebuilds the compute cores of ``BlockMethod`` (CPU SAD,
 per grid cell, histogram voting over the per-cell winners, and the iterative
 2x-upsample sub-pixel refinement.
 
-TPU mapping: the per-workgroup ``abssum`` accumulation with atomics
+Device mapping: the per-workgroup ``abssum`` accumulation with atomics
 (``src/FastSpacedBMMethod.cl:23-40``) becomes a ``lax.scan`` over row shifts
-with all column shifts and all grid cells vectorized per step (integer
-absolute differences are a perfect VPU fit, SURVEY.md section 2); the
+with all column shifts and all grid cells vectorized per step; the
 ``atomic_add`` histogram + bubble-sort vote (``src/FastSpacedBMMethod.cl:
 86-169``) becomes a one-hot sum + ``top_k``.
 """
@@ -61,63 +60,6 @@ def sad_search(
 
     _, sads = jax.lax.scan(row_step, None, jnp.arange(d))
     return jnp.moveaxis(sads, 0, 1)  # [G, D, D] rows = di (y), cols = dj (x)
-
-
-def sad_search_pallas(
-    curr_blocks: jnp.ndarray,
-    prev_regions: jnp.ndarray,
-    *,
-    block_size: int,
-    scan_radius: int,
-    interpret: bool | None = None,
-) -> jnp.ndarray:
-    """Pallas version of :func:`sad_search` — one fused kernel per grid cell.
-
-    The TPU counterpart of the ``OptFlow_C1_D0`` workgroup kernel
-    (``src/FastSpacedBMMethod.cl:4-84``): each grid step holds one current
-    block and its full search region in VMEM and emits the complete
-    ``[D, D]`` SAD map; the reference's ``atomic_add`` accumulation across
-    threads becomes plain vectorized reductions on the VPU.
-    """
-    import jax.experimental.pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    g = curr_blocks.shape[0]
-    s = block_size
-    d = 2 * scan_radius + 1
-    region = s + 2 * scan_radius
-
-    def kernel(curr_ref, region_ref, out_ref):
-        # Mosaic constraints shape this kernel: values must stay rank >= 2,
-        # and dynamic sublane/lane indexing needs 8/128 alignment — so the
-        # row-shift loop is unrolled statically (all slices compile-time)
-        # and each SAD row is stored as a [1, D] vector.
-        curr = curr_ref[0].astype(jnp.float32)  # [S, S]
-        reg = region_ref[0].astype(jnp.float32)  # [S+2R, S+2R]
-
-        for di in range(d):
-            rows = jax.lax.slice(reg, (di, 0), (di + s, region))
-            cols = jnp.stack(
-                [jax.lax.slice(rows, (0, dj), (s, dj + s)) for dj in range(d)]
-            )
-            part = jnp.sum(jnp.abs(cols - curr[None]), axis=-1)  # [D, S]
-            sad_col = jnp.sum(part, axis=-1, keepdims=True)  # [D, 1]
-            out_ref[0, di : di + 1, :] = jnp.swapaxes(sad_col, 0, 1)
-
-    out_t = pl.pallas_call(
-        kernel,
-        grid=(g,),
-        in_specs=[
-            pl.BlockSpec((1, s, s), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, region, region), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, d, d), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((g, d, d), jnp.float32),
-        interpret=interpret,
-    )(curr_blocks, prev_regions)
-    return out_t
 
 
 def sad_min_flow(

@@ -5,9 +5,9 @@ The reference keeps a dormant debug path that runs both its kernel and the
 host reference and diffs the intermediate buffers (``storageA``/``storageB``
 at ``src/FftMethod.cpp:1482-1483``, viewer ``showFMat`` ``:10-48``) plus the
 ``useOCL`` runtime switch.  This module makes that a first-class tool:
-:func:`check` runs every available backend combination on the same input
-batch and reports the pairwise maximum shift disagreement — usable in CI, at
-bring-up on new hardware, or from the CLI.
+:func:`check` runs every spectral backend on the same input batch and
+reports the pairwise maximum shift disagreement — usable in CI, at bring-up
+on new hardware, or from the CLI.
 """
 
 from __future__ import annotations
@@ -21,16 +21,8 @@ from mrs_optic_flow_tpu.ops.phase_correlate import phase_correlate_field
 
 
 def backends() -> Tuple[str, ...]:
-    return ("fft", "dft", "fft+pallas", "dft+pallas", "fused-pallas")
-
-
-def _run(name: str, curr, prev):
-    if name == "fused-pallas":
-        from mrs_optic_flow_tpu.ops.pallas_kernels import phase_correlate_fused_pallas
-
-        return phase_correlate_fused_pallas(curr, prev)
-    base, _, pal = name.partition("+")
-    return phase_correlate_field(curr, prev, backend=base, use_pallas=bool(pal))
+    """The plain XLA spectral backends (one device path, two transforms)."""
+    return ("fft", "dft")
 
 
 def check(curr, prev, *, tolerance_px: float = 0.05) -> Dict[str, float]:
@@ -44,7 +36,7 @@ def check(curr, prev, *, tolerance_px: float = 0.05) -> Dict[str, float]:
     prev = jnp.asarray(prev, jnp.float32)
     outs = {}
     for name in backends():
-        s, _ = _run(name, curr, prev)
+        s, _ = phase_correlate_field(curr, prev, backend=name)
         outs[name] = np.asarray(s)
 
     report: Dict[str, float] = {}

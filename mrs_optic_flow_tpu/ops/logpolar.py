@@ -20,19 +20,17 @@ centre and is verified to 1e-5 against ``cv2.warpPolar`` in
   weights and zero border (``cv::remap`` BORDER_CONSTANT semantics);
 - ``interp="bilinear"`` — 2x2 tap stencil, same border semantics.
 
-TPU-first execution: the resample is computed as ONE-HOT SEPARABLE MATMULS,
-not gathers.  For each output row (fixed phi) the per-axis tap weights are
+Execution: the resample is computed as ONE-HOT SEPARABLE MATMULS, not
+gathers.  For each output row (fixed phi) the per-axis tap weights are
 scattered into dense ``[C, N]`` matrices (8 broadcast compares per axis) and
-contracted against the image on the MXU:
+contracted against the image as a matmul:
 
     T[y, c]  = sum_x img[y, x] * Wx[c, x]        (matmul)
     out[c]   = sum_y Wy[c, y] * T[y, c]          (elementwise + reduce)
 
-Gathers run at ~1e9 elements/s on v5e — the tap-loop formulation cost
-~13 ms/frame and a slice-stencil variant ~19 ms/frame (and its ``[P, 8, 8]``
-temp pads 16x to the ``(8, 128)`` tile, OOMing at fleet batch); the one-hot
-matmul form is dense, layout-friendly, and batches over frames on the MXU.
-Output rows are processed in chunks under ``lax.map`` to bound the dense
+The matmul form was chosen on the accelerator this was first built for,
+where gathers were slow; whether a gather wins on the GPU is not measured
+yet.  The one-hot form is dense and batches over frames.  Output rows are processed in chunks under ``lax.map`` to bound the dense
 weight temporaries.
 
 Two execution paths share these semantics: the per-frame path above (any
@@ -51,6 +49,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from mrs_optic_flow_tpu.ops.preprocess import is_8bit
 
 #: the 8 Lanczos-4 taps around floor(coord)
 _LANCZOS4_OFFSETS = np.arange(-3, 5)
@@ -136,9 +135,9 @@ def _resample_separable(
         y0c, x0c, wyc, wxc = args  # [G, C](, T)
         wx_d = _one_hot_weight_matrix(x0c, wxc, offsets, w)  # [G, C, N]
         wy_d = _one_hot_weight_matrix(y0c, wyc, offsets, h)  # [G, C, N]
-        # T1[g, y, c] = sum_x img[y, x] * wx_d[g, c, x] on the MXU, via the
-        # bf16 hi/lo operand split (3 passes ~ 2e-5 relative error — the
-        # flow kernel's bf16x3 trick; Precision.HIGHEST measured ~3x slower)
+        # T1[g, y, c] = sum_x img[y, x] * wx_d[g, c, x] via the bf16 hi/lo
+        # operand split (3 passes ~ 2e-5 relative error) with float32
+        # accumulation
         wx_hi, wx_lo = _split(wx_d)
 
         def ein(a, b):
@@ -149,11 +148,10 @@ def _resample_separable(
         if not img_exact_bf16:
             t1 = t1 + ein(img_lo, wx_hi)
         # (8-bit integer frames are exact in bf16, so img_lo == 0 and its
-        # pass is dropped — the flow kernel's uint8-exact trick)
+        # pass is dropped)
         # out[g, c] = sum_y wy_d[g, c, y] * T1[g, y, c] — pinned to HIGHEST:
-        # if XLA routes this batched dot to the MXU, default precision would
-        # round both f32 operands to bf16 (~4e-3 relative), silently undoing
-        # the hi/lo split above; as a VPU f32 multiply-reduce the pin is free
+        # at default precision a float32 dot may run in TF32 or bf16
+        # (~4e-3 relative), silently undoing the hi/lo split above
         return jnp.einsum("gcy,gyc->gc", wy_d, t1,
                           precision=jax.lax.Precision.HIGHEST)
 
@@ -176,12 +174,11 @@ def _interp_taps(interp: str):
 
 
 def _static_trim(n: int, res: int, magnitude: float, offsets: np.ndarray) -> int:
-    """Live log-polar column count (static rho trim), rounded up to the
-    128-lane tile.  A tap at integer index floor(coord)+off contributes only
+    """Live log-polar column count (static rho trim), rounded up to a
+    multiple of 128 columns.  A tap at integer index floor(coord)+off contributes only
     if it lands in [0, n); any sample farther from the centre than the
     image corner plus the stencil margin hits only zeros (BORDER_CONSTANT),
-    so those columns are provably all-zero.  Non-lane-aligned trims measured
-    SLOWER than no trim (docs/PERFORMANCE.md rule 9)."""
+    so those columns are provably all-zero."""
     margin = float(max(abs(int(offsets[0])), int(offsets[-1]))) + 1.0
     r_max = float(np.sqrt(2.0)) * (n / 2.0 + margin)
     r_np = np.exp(np.arange(res, dtype=np.float64) / magnitude) - 1.0
@@ -207,8 +204,8 @@ def _static_trim(n: int, res: int, magnitude: float, offsets: np.ndarray) -> int
 # tap math) instead of building res full rows on device per frame, and the
 # 8 octants' first-pass matmuls collapse to 4 shared ones:
 #
-#     t1[W](p, y, c) = sum_x img[y, x] * W[p, c, x]        (MXU)
-#     row of octant o = sum_y A[p, c, y] * t1[B](p, y, c)  (VPU reduce)
+#     t1[W](p, y, c) = sum_x img[y, x] * W[p, c, x]        (matmul)
+#     row of octant o = sum_y A[p, c, y] * t1[B](p, y, c)  (multiply-reduce)
 #
 # with (A, B) the octant's (y, x) coordinate families.  Two further static
 # trims fall out of the geometry: per 128-column rho chunk, (a) the image
@@ -434,7 +431,7 @@ def _resample_v2(
                 t1[b_f], alo - ylo_b, alo - ylo_b + aln, axis=1
             )
             # pinned to HIGHEST like the v1 path: both operands are f32 and
-            # a default-precision MXU route would round them to bf16
+            # a default-precision dot may round them to TF32 or bf16
             octant_rows[o].append(
                 jnp.einsum(
                     "pcy,pyc->pc", wf32[a_f], tb,
@@ -476,7 +473,7 @@ def logpolar(
     column whose radius exceeds the farthest sample any stencil tap can
     touch (image corner + tap margin) is provably all-zero under the
     BORDER_CONSTANT semantics, so only the live columns (rounded up to the
-    128-lane tile) are resampled and the zeros are concatenated back —
+    a multiple of 128) are resampled and the zeros are concatenated back —
     bit-identical output with fewer matmul FLOPs at the production
     geometry (480 px, optimM 49.9: rays exit the image by rho ~ 293, so
     384 of 480 columns are computed).
@@ -530,9 +527,7 @@ def _logpolar_v2_impl(
     img: jnp.ndarray, weights: Tuple[jnp.ndarray, ...], *, plan: LPPlan
 ) -> jnp.ndarray:
     # 8-bit integer frames are exact in bf16 — drop the low-order image
-    # pass (the ONE predicate: pallas_kernels.is_8bit)
-    from mrs_optic_flow_tpu.ops.pallas_kernels import is_8bit
-
+    # pass (the ONE predicate: preprocess.is_8bit)
     return _resample_v2(
         img.astype(jnp.float32), weights, plan, is_8bit(img.dtype)
     )
@@ -553,16 +548,13 @@ def _logpolar_impl(
     n = img.shape[-1]
     res = resolution or n
     # 8-bit integer frames (the node's uint8 grayscale carry) are exact in
-    # bf16 — the resample drops its low-order image pass (1 of 3 MXU
-    # passes; the ONE predicate: pallas_kernels.is_8bit)
-    from mrs_optic_flow_tpu.ops.pallas_kernels import is_8bit
-
+    # bf16 — the resample drops its low-order image pass (1 of 3 matmul
+    # passes; the ONE predicate: preprocess.is_8bit)
     exact = is_8bit(img.dtype)
     img = img.astype(jnp.float32)
     offsets, weight_fn = _interp_taps(interp)
 
-    # static rho trim — see _static_trim (128-lane rounding per
-    # docs/PERFORMANCE.md rule 9, measured in scripts/tune_lp_chunk.py)
+    # static rho trim — see _static_trim
     c_used = _static_trim(n, res, magnitude, offsets)
 
     rho = jnp.arange(c_used, dtype=jnp.float32)

@@ -1,6 +1,6 @@
 """Batched FFT phase correlation — the compute core of the framework.
 
-This is the TPU-native re-design of the reference's fused OpenCL kernel
+This is the batched JAX re-design of the reference's fused OpenCL kernel
 ``phaseCorrelateField`` (``cl/FftMethod.cl:1381-1485``) and of the CPU
 fallback ``cv::phaseCorrelate`` path (``src/FftMethod.cpp:1836``).  The math
 chain, per patch (reference citations in parentheses):
@@ -45,10 +45,11 @@ one jitted graph; the "plan" is the XLA compilation keyed by shape.  Two
 spectral backends are provided:
 
 - ``backend="fft"`` — ``jnp.fft.rfft2``/``irfft2`` (XLA's native FFT),
-- ``backend="dft"`` — DFT-by-matmul on the MXU: for the small patch sizes
-  used here (120 px default) the transform is a pair of ``[N,N]`` matmuls,
-  which maps straight onto the 128x128 systolic array and is typically faster
-  than the generic FFT lowering on TPU.
+- ``backend="dft"`` — DFT-by-matmul: for the small patch sizes used here
+  (120 px default) the transform is a pair of ``[N,N]`` matmuls per axis.
+
+Both are plain XLA; which one is faster on a given card is a measurement
+(``PERF.md``), not a rule.
 
 Everything is shape-polymorphic over leading batch dims: inputs
 ``[..., N, N]`` produce shifts ``[..., 2]`` (x, y order, like
@@ -77,7 +78,7 @@ DEFAULT_CENTROID_RADIUS = 3
 
 
 # ---------------------------------------------------------------------------
-# MXU matmul-DFT backend
+# matmul-DFT backend
 # ---------------------------------------------------------------------------
 
 
@@ -86,17 +87,18 @@ def _dft_matrices(n: int) -> Tuple[np.ndarray, np.ndarray]:
     """Real/imag parts of the DFT matrix ``W[j,k] = exp(-2*pi*i*j*k/n)``.
 
     Replaces the reference's twiddle-table generation
-    (``OCL_FftPlan::fillRadixTable``, ``src/FftMethod.cpp:546-565``): on TPU
-    the whole transform is a matmul with this constant, computed once per
-    size in float64 and cast down.
+    (``OCL_FftPlan::fillRadixTable``, ``src/FftMethod.cpp:546-565``): the
+    whole transform is a matmul with this constant, computed once per size in
+    float64 and cast down.
     """
     j = np.arange(n, dtype=np.float64)
     theta = -2.0 * np.pi * np.outer(j, j) / n
     return np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
 
 
-# sub-pixel accuracy needs full float32 matmuls — on TPU the default einsum
-# precision drops to bfloat16 passes, which costs ~0.5 px of centroid error.
+# sub-pixel accuracy needs full float32 matmuls — at default precision a
+# float32 dot may run in TF32 (GPU tensor cores) or bf16 passes, which costs
+# tenths of a pixel of centroid error.
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -109,7 +111,7 @@ def _lmm(w: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
 
 
 def _dft2_real(x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """2-D DFT of a real input via 6 MXU matmuls. Returns (real, imag)."""
+    """2-D DFT of a real input via 6 matmuls. Returns (real, imag)."""
     n = x.shape[-1]
     c, s = (jnp.asarray(m) for m in _dft_matrices(n))
     # rows (last axis): T = X @ W  (W symmetric, so no transpose needed)
@@ -122,7 +124,7 @@ def _dft2_real(x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
 
 
 def _idft2_real_output(rr: jnp.ndarray, ri: jnp.ndarray) -> jnp.ndarray:
-    """Real part of the inverse 2-D DFT via 6 MXU matmuls (1/N^2 scaled)."""
+    """Real part of the inverse 2-D DFT via 6 matmuls (1/N^2 scaled)."""
     n = rr.shape[-1]
     c, s = (jnp.asarray(m) for m in _dft_matrices(n))
     # conj(W) = C - i*S with S as stored (S holds sin(-theta) = -sin(theta)),
@@ -249,21 +251,14 @@ def phase_correlate_field(
     search_radius: int = DEFAULT_SEARCH_RADIUS,
     centroid_radius: int = DEFAULT_CENTROID_RADIUS,
     backend: str = "fft",
-    use_pallas: bool = False,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Full batched phase correlation: ``[..., N, N]`` pairs -> shifts.
 
     The one-launch equivalent of the reference's single blocking enqueue per
     frame pair (``src/FftMethod.cpp:398``): the whole patch batch is one XLA
-    program.  ``use_pallas`` routes the peak/centroid stage through the fused
-    Pallas kernel (:mod:`mrs_optic_flow_tpu.ops.pallas_kernels`) — the
-    analogue of the reference's ``useOCL`` toggle (``src/optic_flow.cpp:853``).
+    program.
 
     Returns ``(shift [..., 2], maxval [...])``.
     """
     surf = correlation_surface(curr, prev, search_radius=search_radius, backend=backend)
-    if use_pallas:
-        from mrs_optic_flow_tpu.ops.pallas_kernels import peak_refine_pallas
-
-        return peak_refine_pallas(surf, centroid_radius=centroid_radius)
     return peak_refine(surf, centroid_radius=centroid_radius)

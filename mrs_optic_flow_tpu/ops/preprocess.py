@@ -3,8 +3,8 @@
 The reference does all of this on the host CPU with OpenCV before uploading
 to the GPU (``src/optic_flow.cpp:1602-1622``, ``src/FftMethod.cpp:1805-1806``);
 here it runs inside the jitted device graph so that only the raw uint8 frame
-crosses the host->HBM boundary — the transfer-cost lesson of the reference's
-README (``README.md:85-88``) applied to TPU.
+crosses the host->device boundary — the transfer-cost lesson of the
+reference's README (``README.md:85-88``).
 """
 
 from __future__ import annotations
@@ -31,7 +31,17 @@ def to_grayscale(img: jnp.ndarray, *, swap_rb: bool = True) -> jnp.ndarray:
     w = jnp.asarray(_GRAY_WEIGHTS, dtype=jnp.float32)
     if not swap_rb:
         w = w[::-1]
-    return jnp.tensordot(img.astype(jnp.float32), w, axes=([-1], [0]))
+    # HIGHEST: at default precision a GPU runs this float32 contraction in
+    # TF32, whose ~1e-3 relative error moves the rounded 8-bit gray by 1 LSB
+    return jnp.tensordot(img.astype(jnp.float32), w, axes=([-1], [0]),
+                         precision=jax.lax.Precision.HIGHEST)
+
+
+def is_8bit(dtype) -> bool:
+    """The one predicate behind the 8-bit fast paths: uint8/int8 pixels are
+    exact in bfloat16 (8-bit integers fit its mantissa), so a bf16 hi/lo
+    matmul split can drop the data's low-order pass."""
+    return jnp.dtype(dtype) in (jnp.uint8, jnp.int8)
 
 
 def quantize_u8(frame: jnp.ndarray) -> jnp.ndarray:

@@ -54,11 +54,7 @@ class BatchPipeline:
         crop_cx: Optional[float] = None,
         shifted_pts_thr: int = 8,
         ransac_iterations: int = 256,
-        backend: str = "dft",
-        use_pallas: bool = True,
-        half_spectrum: bool = True,
-        bands_per_step: Optional[int] = None,
-        mxu_passes: bool | int = True,
+        backend: str = "fft",
         mesh: Optional[Mesh] = None,
         axis_name: str = "data",
         scale_rotation=None,
@@ -79,10 +75,6 @@ class BatchPipeline:
                 frame_size=frame_size,
                 sample_point_size=sample_point_size,
                 backend=backend,
-                use_pallas=use_pallas,
-                half_spectrum=half_spectrum,
-                bands_per_step=bands_per_step,
-                mxu_passes=mxu_passes,
             )
         )
         # the ENGINE-NORMALIZED geometry, not the raw ctor args: the engine
@@ -128,6 +120,9 @@ class BatchPipeline:
             def call(*args):
                 return fn(*args, self._srw())
 
+            # ahead-of-time lowering with the same injected weights (e.g.
+            # ``pipe.step.lower(...).compile().memory_analysis()``)
+            call.lower = lambda *args: fn.lower(*args, self._srw())
             return call
 
         if mesh is not None:
@@ -206,16 +201,14 @@ class BatchPipeline:
     def _sr_resample(self, frames: jnp.ndarray, sr_w: tuple) -> jnp.ndarray:
         """Batched log-polar resample of the SR leg, mesh-aware.
 
-        Stream chunking (``lp_batch_chunk`` — the fix for the vmap
-        resample's HBM spill, docs/PERFORMANCE.md rule 12) is a
-        per-device schedule: a ``lax.map`` over a GSPMD-sharded batch axis
-        would SERIALIZE across devices.  Under a mesh the chunked form
-        therefore runs inside ``shard_map`` — each device chunks its LOCAL
-        slice (a 128-stream fleet over 8 chips still has 16 streams per
-        device, exactly the measured spill regime) — falling back to plain
+        Stream chunking (``lp_batch_chunk``, which bounds the vmap
+        resample's temporaries) is a per-device schedule: a ``lax.map`` over
+        a GSPMD-sharded batch axis would SERIALIZE across devices.  Under a
+        mesh the chunked form therefore runs inside ``shard_map`` — each
+        device chunks its LOCAL slice — falling back to plain
         vmap when the batch does not divide the mesh or chunking is off.
         The correlation stays in the outer GSPMD program (it is one
-        batched MXU dispatch with no cross-stream work)."""
+        batched dispatch with no cross-stream work)."""
         sr = self.scale_rotation
         if self.mesh is None:
             return sr._logpolar_batch_w(frames, sr_w)
@@ -236,8 +229,8 @@ class BatchPipeline:
         )(frames, sr_w)
 
     def _preprocess(self, raw: jnp.ndarray) -> jnp.ndarray:
-        # grayscale inputs keep their dtype: the flow kernel streams uint8
-        # into VMEM directly (4x less DMA than a float32 copy of the batch)
+        # grayscale inputs keep their dtype: uint8 frames stay uint8 until
+        # the engine casts them (4x fewer bytes than a float32 copy)
         g = to_grayscale(raw) if raw.ndim == 4 else jnp.asarray(raw)
         return center_crop(g, self.frame_size, int(self.crop_cx))
 
@@ -251,8 +244,9 @@ class BatchPipeline:
 
         def core(prev, curr, heights, dts, rate_quats, c2b, keys, sr_pair):
             res = self.engine.step_batch(prev, curr)
-            # batch-last geometry: ~15x better VPU lane utilization than
-            # jax.vmap(get_rt) (which leaves size-2/9/16 axes on the lanes)
+            # batch-last geometry (laid out for the wide vector lanes of the
+            # accelerator this was first built for; whether it is the best
+            # layout on the GPU is not measured yet)
             rt = get_rt_batch(
                 res.shifts, heights, dts, ul_x, cam, dist, c2b, rate_quats,
                 keys,
@@ -262,7 +256,8 @@ class BatchPipeline:
                 ransac_iterations=self.ransac_iterations,
             )
             # the one genuine collective of the deployment: fleet statistics
-            # reduced across the sharded batch (rides ICI under a mesh);
+            # reduced across the sharded batch (an all-reduce over the
+            # devices of the mesh — NVLink between GPUs);
             # nanmean like the long-range step — one dead stream's NaN raw
             # shifts must not blind the fleet-wide statistic
             fleet = jnp.nanmean(jnp.linalg.norm(res.shifts_raw, axis=-1))

@@ -3,8 +3,9 @@
 Design: frame-pair batches shard over a 1-D ``data`` mesh axis; every patch
 correlation is independent, so XLA inserts no communication on the hot path
 (the right answer for a workload whose math has no cross-sample coupling).
-Observability reductions (fleet mean/max shift magnitudes) use ``psum`` over
-the mesh so they ride ICI.
+Observability reductions (fleet mean/max shift magnitudes) are all-reduces
+over the mesh — NVLink between the GPUs of one host, which joins every card
+to every other, so a 1-D axis needs no topology-aware layout.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ def sharded_flow_step(engine, mesh: Mesh, axis_name: str = "data"):
 
     Returns a jitted ``fn(prev [B, H, W], curr [B, H, W]) ->
     (shifts [B, P, 2], fleet_mean_speed [])`` where B shards over the mesh.
-    The scalar fleet statistic forces a real ``psum`` across chips — the
-    ICI-riding reduction pattern for a throughput deployment.
+    The scalar fleet statistic forces a real all-reduce across devices —
+    the one collective of a throughput deployment.
     """
     in_sharding = NamedSharding(mesh, P(axis_name))
     out_sharding = (NamedSharding(mesh, P(axis_name)), NamedSharding(mesh, P()))

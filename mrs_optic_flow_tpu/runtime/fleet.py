@@ -5,14 +5,14 @@ each carry their own previous-frame state (the reference's ``imPrev`` swap,
 ``src/FftMethod.cpp:1872``, per stream) and every tick runs the ENTIRE
 fleet's flow + geometry as one ``BatchPipeline`` program.  The previous
 frames live on device and are reused from the last tick's inputs, so each
-tick transfers only the new frames — the host->HBM traffic of a single
+tick transfers only the new frames — the host->device traffic of a single
 camera, times the fleet, with zero re-uploads.
 
 The reference is structurally single-stream (one nodelet per camera, one
-blocking OpenCL enqueue per frame); this layer is the TPU-native scaling
-story on top of the same math (SURVEY.md section 2, parallelism item 1:
-batch frame pairs per step).  Under a mesh the fleet batch shards over ICI
-like any other batch.
+blocking OpenCL enqueue per frame); this layer is the scaling story on top
+of the same math (SURVEY.md section 2, parallelism item 1: batch frame
+pairs per step).  Under a mesh the fleet batch shards over the devices'
+``data`` axis like any other batch.
 """
 
 from __future__ import annotations

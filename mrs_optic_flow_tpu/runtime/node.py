@@ -53,6 +53,7 @@ from mrs_optic_flow_tpu.models.scale_rotation import (
     ScaleRotationEstimator,
 )
 from mrs_optic_flow_tpu.ops.preprocess import center_crop, resize_by, to_grayscale
+from mrs_optic_flow_tpu.utils.cache import enable_persistent_cache
 from mrs_optic_flow_tpu.runtime.msgs import (
     CameraInfo,
     Float64Stamped,
@@ -115,6 +116,9 @@ class OpticFlowNode:
         way); a raising provider is treated as a failed lookup (the
         ``tf2::TransformException`` path).  ``set_transforms`` remains the
         push-style alternative."""
+        # node start-up (CLI, ROS bridges, embedding code): later processes
+        # load the frame programs from the persistent compile cache
+        enable_persistent_cache()
         self.config = config or load_config()
         self.publish = publish or (lambda topic, msg: None)
         self.log = log
@@ -128,19 +132,10 @@ class OpticFlowNode:
         if c.method == 4:
             self.engine = make_engine(
                 4, **engine_kwargs, max_pixel_speed=c.constraints.max_pixel_speed,
-                # the optional `tpu:` config block (use_pallas is the YAML
-                # surface for the reference's useOCL, src/optic_flow.cpp:853)
-                use_pallas=c.use_pallas, backend=c.backend,
-                mxu_passes=c.mxu_passes, half_spectrum=c.half_spectrum,
-                pairs_per_step=c.pairs_per_step, band_stack=c.band_stack,
-                long_range_ratio=c.long_range_ratio,
+                backend=c.backend, long_range_ratio=c.long_range_ratio,
                 quantize_8bit=c.quantize_8bit,
             )
         else:
-            # the SAD engines honor an EXPLICIT tpu.use_pallas (fused Pallas
-            # SAD kernel vs lax.scan); absent, they keep their own default
-            if c.use_pallas_explicit:
-                engine_kwargs["use_pallas"] = c.use_pallas
             self.engine = make_engine(
                 c.method, **engine_kwargs, scan_radius=c.scan_radius,
                 step_size=c.step_size,
@@ -155,10 +150,8 @@ class OpticFlowNode:
                     resolution=c.frame_size, magnitude=c.scale_rot_magnitude,
                     interp=c.scale_rot_interp,
                     lp_resolution=c.scale_rot_lp_resolution or None,
-                    # the estimator shares the flow engine's fast-path knobs
-                    # (the tpu: config block)
-                    backend=c.backend, use_pallas=c.use_pallas,
-                    quantize_8bit=c.quantize_8bit,
+                    # the estimator shares the flow engine's backend
+                    backend=c.backend, quantize_8bit=c.quantize_8bit,
                 )
             )
             self.scale_rot_state = self.scale_rotation_estimator.init_state()
@@ -945,7 +938,7 @@ class OpticFlowNode:
 
         The reference JITs its OpenCL kernel lazily on the first frame
         (``src/FftMethod.cpp:344-345``), stalling the stream for the build;
-        on TPU the first-compile stall is seconds, so production brings the
+        an XLA compile stalls it the same way, so production brings the
         node up warm.  Runs one synthetic frame pair through preprocess,
         engine (both modes), and the geometry stage with the current camera;
         requires camera info.  Returns the wall time spent.

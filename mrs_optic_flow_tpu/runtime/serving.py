@@ -55,9 +55,9 @@ class ServingLoop:
         seed: int = 0,
     ):
         """``depth``: dispatched batches in flight before the oldest is
-        read back.  2 = classic double buffering; 8 measured ~1.6x the
-        single-in-flight full-pipeline throughput on v5e (the device works
-        on k+1..k+depth-1 while the host materializes k)."""
+        read back.  2 = classic double buffering; deeper keeps the device
+        working on k+1..k+depth-1 while the host materializes k (the best
+        depth on the GPU is not measured yet)."""
         if depth < 1:
             raise ValueError("depth must be >= 1")
         self.pipeline = pipeline
@@ -80,7 +80,7 @@ class ServingLoop:
 
         def norm_frame(a):
             # uint8 capture crosses host->device at a quarter of the bytes
-            # of float32 (the kernel casts in VMEM); anything else is
+            # of float32 (the engine casts on device); anything else is
             # normalized to float32 on the host — a float64 frame would
             # otherwise double the transfer AND add a per-dtype recompile.
             # Decided per array: a single wide frame in a batch must not

@@ -2,7 +2,7 @@
 //
 // The reference's native host layer (OpenCL queue management, UMat buffer
 // plumbing, blocking enqueue + readback decode; src/FftMethod.cpp:276-475,
-// :1723-1758) maps on TPU to three host-side concerns, implemented here:
+// :1723-1758) maps here to three host-side concerns:
 //
 //   1. FrameQueue  — a lock-free single-producer/single-consumer ring buffer
 //                    decoupling the capture thread from the device-feed

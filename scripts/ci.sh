@@ -4,6 +4,8 @@
 # The reference's CI only compiles (SURVEY.md section 4); this one tests.
 set -euo pipefail
 cd "$(dirname "$0")/.."
+# CI runs on CPU; the GPU path is checked by `python chip_smoke.py`
+export JAX_PLATFORMS=cpu
 
 echo "== native build =="
 make -C native
@@ -22,7 +24,6 @@ TF_CPP_MIN_LOG_LEVEL=${TF_CPP_MIN_LOG_LEVEL:-3} python -m pytest tests/ -q
 echo "== entry compile check =="
 python - <<'EOF'
 import jax
-jax.config.update("jax_platforms", "cpu")
 import __graft_entry__ as ge
 fn, args = ge.entry()
 out = jax.jit(fn)(*args)

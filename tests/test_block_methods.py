@@ -130,34 +130,6 @@ def test_make_engine_dispatch():
         make_engine(7)
 
 
-def test_sad_pallas_matches_xla(rng):
-    """Pallas SAD kernel agrees exactly with the lax.scan implementation."""
-    from mrs_optic_flow_tpu.ops.block_matching import sad_search_pallas
-
-    s, r = 16, 4
-    curr = rng.integers(0, 255, size=(3, s, s)).astype(np.float32)
-    region = rng.integers(0, 255, size=(3, s + 2 * r, s + 2 * r)).astype(np.float32)
-    a = np.asarray(sad_search(jnp.asarray(curr), jnp.asarray(region),
-                              block_size=s, scan_radius=r))
-    b = np.asarray(sad_search_pallas(jnp.asarray(curr), jnp.asarray(region),
-                                     block_size=s, scan_radius=r))
-    np.testing.assert_allclose(b, a, rtol=1e-6)
-
-
-def test_block_method_pallas_engine(rng):
-    """BlockMethod with the Pallas SAD backend matches the XLA backend."""
-    outs = []
-    for use_pallas in [False, True]:
-        eng = BlockMethod(BlockMethodConfig(**SMALL, use_pallas=use_pallas))
-        state = eng.init_state()
-        f0 = smooth_random_image(rng, 96)
-        f1 = np.roll(f0, (2, -3), axis=(0, 1))
-        state, _ = eng.step(state, jnp.asarray(f0))
-        state, res = eng.step(state, jnp.asarray(f1))
-        outs.append(np.asarray(res.shifts))
-    np.testing.assert_allclose(outs[0], outs[1])
-
-
 def test_scale_rotation_step_batch(rng):
     """Batched scale/rotation agrees with the stateful per-frame path."""
     cv2 = pytest.importorskip("cv2")

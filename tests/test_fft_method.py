@@ -9,7 +9,7 @@ from mrs_optic_flow_tpu.models import FftMethod, FftMethodConfig
 
 from oracle import smooth_random_image
 
-CFG = FftMethodConfig(use_pallas=False, backend="fft")  # fast on the CPU harness
+CFG = FftMethodConfig(backend="fft")  # fast on the CPU harness
 
 
 def test_first_frame_zero_shift(rng):
@@ -94,16 +94,21 @@ def test_bad_backend_rejected_at_construction():
         FftMethod(FftMethodConfig(backend="nope"))
 
 
-def test_pallas_engine_equivalence(rng):
-    """use_pallas toggle is the useOCL analogue: both paths agree."""
+@pytest.mark.parametrize("mode", ["step", "step_batch"])
+def test_backend_engine_equivalence(rng, mode):
+    """The two spectral transforms (matmul DFT and XLA FFT) are one plain
+    XLA path: the engine's flow agrees between them, per frame and batched."""
     f0 = smooth_random_image(rng, 480)
     f1 = np.roll(f0, (6, 2), axis=(0, 1))
     outs = []
-    for cfg in [CFG, FftMethodConfig(use_pallas=True, backend="dft")]:
-        eng = FftMethod(cfg)
-        state = eng.init_state()
-        state, _ = eng.step(state, jnp.asarray(f0))
-        _, res = eng.step(state, jnp.asarray(f1))
+    for backend in ("fft", "dft"):
+        eng = FftMethod(FftMethodConfig(backend=backend))
+        if mode == "step":
+            state = eng.init_state()
+            state, _ = eng.step(state, jnp.asarray(f0))
+            _, res = eng.step(state, jnp.asarray(f1))
+        else:
+            res = eng.step_batch(jnp.asarray(f0)[None], jnp.asarray(f1)[None])
         outs.append(np.asarray(res.shifts))
     np.testing.assert_allclose(outs[0], outs[1], atol=5e-3)
 
@@ -125,10 +130,10 @@ def test_optic_flow_calc_compat(rng):
 
 
 def test_unaligned_patch_size(rng):
-    """Patch sizes that violate the frame-banded kernel's alignment fall
-    back to the patch-batch path and still work (e.g. 60-px patches)."""
+    """Patch sizes off any power-of-two or 8-px alignment still work
+    (e.g. 60-px patches, an 8x8 grid)."""
     eng = FftMethod(FftMethodConfig(frame_size=480, sample_point_size=60,
-                                    backend="dft", use_pallas=True))
+                                    backend="dft"))
     assert eng.sq_num == 8
     state = eng.init_state()
     f0 = smooth_random_image(rng, 480, cutoff=0.35)
@@ -142,16 +147,8 @@ def test_unaligned_patch_size(rng):
 
 
 def test_step_batch_uint8_exact_inputs_bit_identical(rng):
-    """uint8 frames auto-enable the exact-input kernel path (8-bit ints are
-    exact in bf16, so the dropped low-order split pass is exactly zero) —
+    """uint8 frames stay uint8 until the engine casts them on device —
     results must be bit-identical to pre-converted float32 frames."""
-    import jax.numpy as jnp
-    from mrs_optic_flow_tpu.models import FftMethod, FftMethodConfig
-    from oracle import smooth_random_image
-
-    # patch must satisfy the frames-kernel gate (patch % 8 == 0) or
-    # step_batch falls back to the patchify path and never exercises the
-    # exact-input / uint8-streaming code this test guards
     eng = FftMethod(FftMethodConfig(frame_size=64, sample_point_size=16))
     prev8 = (np.stack([smooth_random_image(rng, 64) for _ in range(3)]) * 255
              ).astype(np.uint8)
@@ -259,39 +256,6 @@ def test_quantized_state_carry(rng):
     assert st.prev.dtype == jnp.uint8
 
 
-def test_step_packing_knobs_from_config(rng):
-    """pairs_per_step / band_stack flow YAML -> OpticFlowConfig -> engine and
-    regroup the frames-kernel matmul streams without changing results; a
-    configured pairs_per_step that does not divide the batch falls back to
-    auto instead of raising (kernel scheduling knob — no reference analogue,
-    the OCL path at cl/FftMethod.cl:1381 is per-window)."""
-    import jax.numpy as jnp
-    from mrs_optic_flow_tpu.config import load_config
-    from mrs_optic_flow_tpu.models import FftMethod, FftMethodConfig
-    from mrs_optic_flow_tpu.runtime.node import OpticFlowNode
-    from oracle import smooth_random_image
-
-    cfg = load_config(overrides={"tpu": {"pairs_per_step": 2, "band_stack": 2}})
-    assert cfg.pairs_per_step == 2 and cfg.band_stack == 2
-    node = OpticFlowNode(cfg, publish=lambda *_: None)
-    assert node.engine.config.pairs_per_step == 2
-    assert node.engine.config.band_stack == 2
-
-    base = FftMethodConfig(frame_size=64, sample_point_size=16)
-    packed = FftMethodConfig(frame_size=64, sample_point_size=16,
-                             pairs_per_step=2, band_stack=2)
-    prev = np.stack([smooth_random_image(rng, 64) for _ in range(4)])
-    curr = np.stack([np.roll(prev[i], (2, -(i + 1)), (0, 1)) for i in range(4)])
-    r0 = FftMethod(base).step_batch(jnp.asarray(prev), jnp.asarray(curr))
-    r1 = FftMethod(packed).step_batch(jnp.asarray(prev), jnp.asarray(curr))
-    np.testing.assert_array_equal(np.asarray(r0.shifts), np.asarray(r1.shifts))
-
-    # odd batch: configured pairs_per_step=2 cannot divide 3 -> auto fallback
-    r2 = FftMethod(packed).step_batch(jnp.asarray(prev[:3]), jnp.asarray(curr[:3]))
-    np.testing.assert_array_equal(
-        np.asarray(r0.shifts[:3]), np.asarray(r2.shifts))
-
-
 def test_long_range_non_multiple_downsample(rng):
     """Downsampled frame NOT an exact multiple of the LR patch — a geometry
     the reference accepts (frame 600 / patch 120 / ratio 4 -> 150 px image,
@@ -322,12 +286,8 @@ def test_long_range_non_multiple_downsample(rng):
 
 
 def test_unaligned_patch_uint8_exact_bit_identical(rng):
-    """patch % 8 != 0 routes through the fullfused patch-batch kernel; with
-    the r5 exact-input plumbing, uint8 frames must give bit-identical
-    results to pre-converted float32 frames there too (previously only the
-    frames kernel had the fast path)."""
-    import jax.numpy as jnp
-
+    """patch % 8 != 0 (100 px windows): uint8 frames give bit-identical
+    results to pre-converted float32 frames there too."""
     eng = FftMethod(FftMethodConfig(frame_size=300, sample_point_size=100))
     assert eng.config.sample_point_size % 8 != 0
     prev8 = (smooth_random_image(rng, 300, cutoff=0.4) * 0.5 + 64).astype(np.uint8)

@@ -222,25 +222,43 @@ def test_config_tpu_block_optional():
     without it (or with a bare empty `tpu:` header, which YAML maps to
     None) keep loading with defaults."""
     cfg = load_config(overrides={"tpu": None})  # absent/empty block
-    assert cfg.use_pallas is True and cfg.mxu_passes == 3
-    assert cfg.use_pallas_explicit is False
-
-    # YAML `true` must mean 3 passes (the engine's documented True -> 3),
-    # never int(True) == 1 (the fast mode)
-    cfg = load_config(overrides={"tpu": {"mxu_passes": True}})
-    assert cfg.mxu_passes == 3
-
-    cfg = load_config(overrides={
-        "tpu": {"use_pallas": False, "backend": "fft", "mxu_passes": 1},
-    })
-    assert cfg.use_pallas is False
-    assert cfg.use_pallas_explicit is True
     assert cfg.backend == "fft"
-    assert cfg.mxu_passes == 1
+
+    cfg = load_config(overrides={"tpu": {"backend": "dft"}})
+    assert cfg.backend == "dft"
 
     from mrs_optic_flow_tpu.runtime import OpticFlowNode
 
     node = OpticFlowNode(cfg, publish=lambda t, m: None, log=lambda s: None)
-    assert node.engine.config.use_pallas is False
-    assert node.engine.config.backend == "fft"
-    assert node.engine.config.mxu_passes == 1
+    assert node.engine.config.backend == "dft"
+
+
+@pytest.mark.parametrize("key, value", [
+    ("use_pallas", True), ("use_pallas", False), ("mxu_passes", 3),
+    ("half_spectrum", True), ("bands_per_step", 2), ("pairs_per_step", 2),
+    ("band_stack", 2),
+])
+def test_config_rejects_removed_kernel_key(key, value):
+    """Keys that chose among the removed kernels of the first build fail at load
+    (the strict-load philosophy, src/optic_flow.cpp:1084-1087): the error
+    names the key and says what it was, instead of silently meaning
+    nothing."""
+    from mrs_optic_flow_tpu.config import REMOVED_KERNEL_KEYS
+
+    assert key in REMOVED_KERNEL_KEYS
+    with pytest.raises(ConfigError, match=f"tpu/{key} chose a TPU Pallas kernel"):
+        load_config(overrides={"tpu": {key: value}})
+
+
+def test_shipped_config_loads_without_removed_keys():
+    """configs/default.yaml itself sets none of the removed keys."""
+    import pathlib
+
+    import yaml
+
+    from mrs_optic_flow_tpu.config import REMOVED_KERNEL_KEYS
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "configs" / "default.yaml"
+    tree = yaml.safe_load(path.read_text())
+    assert not set(tree.get("tpu") or {}) & set(REMOVED_KERNEL_KEYS)
+    assert load_config().backend == "fft"

@@ -64,7 +64,7 @@ def test_logpolar_lanczos4_matches_opencv(rng):
 @pytest.mark.parametrize("interp", ["lanczos4", "bilinear"])
 def test_logpolar_uint8_exact_fast_path(rng, interp):
     """8-bit integer frames are exact in bf16, so the resample drops the
-    low-order image pass (2 MXU passes instead of 3) — the result must be
+    low-order image pass (2 bf16 matmul passes instead of 3) — the result must be
     bit-identical to feeding the same values as float32 (the node's uint8
     grayscale carry hits this path; see ``ops/logpolar.py``)."""
     n, m = 128, 20.0

@@ -29,7 +29,7 @@ def test_make_mesh():
 def test_sharded_flow_step(rng):
     mesh = make_mesh(8)
     eng = FftMethod(FftMethodConfig(frame_size=48, sample_point_size=12,
-                                    use_pallas=False, backend="fft"))
+                                    backend="fft"))
     step = sharded_flow_step(eng, mesh)
     b = 16
     prev = np.stack([smooth_random_image(rng, 48, cutoff=0.45) for _ in range(b)])

@@ -66,7 +66,7 @@ def test_combined_rotation_translation(rng):
     # forward under H (x2 = H x1)
     curr = cv2.warpPerspective(prev, hp, (n_img, n_img), flags=cv2.INTER_LINEAR)
 
-    eng = FftMethod(FftMethodConfig(use_pallas=False, backend="fft"))
+    eng = FftMethod(FftMethodConfig(backend="fft"))
     state = eng.init_state()
     state, _ = eng.step(state, jnp.asarray(prev))
     state, res = eng.step(state, jnp.asarray(curr))
